@@ -1,20 +1,20 @@
-"""Record the reference-layout baseline for bench.py's ``vs_baseline``.
+"""Measure the reference-layout cloth baseline.
 
 The reference cloth engine (DaXBench cloth_simulator.py:257-337) runs its
 hot loop in a *packed + full-grid* layout: every substep scatters the packed
 (P, 3) particle array onto a zeroed (N, N, 3) grid
 (``.at[idx_i, idx_j].set``), then performs two (P*8, 3) gathers
 (``x_grid[j_x, j_y]`` / ``x_grid[i_x, i_y]``) to form spring pairs — O(N^2)
-HBM traffic per substep to simulate P particles, plus a gather/scatter pair
+memory traffic per substep to simulate P particles, plus a gather/scatter pair
 XLA cannot fuse away. This script re-implements exactly that layout (not the
-repo's dense-bbox static-shift engine, and no Pallas) behind the same
-simulator interface, runs it under the *identical* APG minimize harness and
-configuration as bench.py on the same chip, and writes the measured
-steps/s/chip into BASELINE.json["published"]["sps_fold_cloth3_reference_layout"].
+repo's dense-bbox static-shift engine) behind the same simulator
+interface, runs it under the *identical* APG minimize harness and
+configuration as bench.py on the same device, and prints the measured
+steps/s/device as one JSON line.
 
-This is the reference's own pure-JAX computation run on this TPU — the
-fairest available "CUDA-JAX reference" stand-in, since the reference stack
-is pure jnp (no CUDA kernels) and therefore portable to this chip verbatim.
+This is the reference's own pure-JAX computation — the fairest available
+"CUDA-JAX reference" stand-in, since the reference stack is pure jnp (no
+CUDA kernels) and therefore portable verbatim.
 
 Usage: python scripts/bench_baseline.py          (flags as bench.py)
 """
@@ -184,9 +184,6 @@ def build_reference_layout_simulator():
 
             return robot_step
 
-        def _maybe_enable_pallas(self):  # the baseline never uses Pallas
-            return
-
     return ReferenceLayoutClothSimulator
 
 
@@ -216,10 +213,9 @@ def main():
 
     conf = ClothConf(
         N=80, stiffness=900.0, mem_saving_level=2, task="bench_fold_cloth3",
-        goal_path="", use_substep_obs=False, backend="xla",
+        goal_path="", use_substep_obs=False,
     )
     env = FoldCloth3Env(batch_size=num_envs // n_dev, conf=conf)
-    assert env.simulator.backend == "xla"
     log(f"reference-layout env constructed (P={env.n_particles})")
 
     init_ts, minimize, reset_batch, _ = build_apg(
@@ -241,7 +237,7 @@ def main():
     jax.block_until_ready(metrics)
     dt = (time.time() - t0) / iters
     sps = env_steps * num_envs / dt / n_dev
-    log(f"{iters} timed iters, {dt:.3f}s/iter -> {sps:.2f} steps/s/chip")
+    log(f"{iters} timed iters, {dt:.3f}s/iter -> {sps:.2f} steps/s/device")
 
     record = {
         "sps_fold_cloth3_reference_layout": round(sps, 2),
@@ -254,14 +250,6 @@ def main():
         },
     }
     print(json.dumps(record), flush=True)
-    if os.environ.get("BASELINE_WRITE", "1") == "1":
-        path = os.path.join(REPO, "BASELINE.json")
-        with open(path) as f:
-            data = json.load(f)
-        data.setdefault("published", {}).update(record)
-        with open(path, "w") as f:
-            json.dump(data, f, indent=2)
-        log(f"wrote published baseline to {path}")
 
 
 if __name__ == "__main__":

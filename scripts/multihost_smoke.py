@@ -13,8 +13,8 @@ Run (one line per host / local test):
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \
       python scripts/multihost_smoke.py --num_processes 2 --process_id 1
 
-On a TPU pod slice, drop the env vars and run one process per host with
---coordinator <host0>:8476 (see docs/MULTIHOST.md).
+On GPU hosts, drop the env vars and run one process per host, each owning
+its local cards, with --coordinator <host0>:8476 (see docs/MULTIHOST.md).
 """
 
 import argparse

@@ -11,24 +11,18 @@ particle block exactly plus the primitive-buffer mapping (our steps+1
 buffer vs the reference's steps buffer with its silently-dropped last FK
 write — engine/primitives.py docstring).
 
-Run on the TPU (RECORD_ON_TPU=1): the reference engine's XLA-CPU compile
-of its 27x-materialized scatter substep is pathological (>15 min, ~70% of
-host RAM — observed round 4); the TPU compile is ~5 min (r3 shim record).
+Runs on JAX's default device. Prefer a GPU: the reference engine's XLA-CPU
+compile of its 27x-materialized scatter substep is pathological (over 15
+minutes and most of the host's RAM).
 
-    RECORD_ON_TPU=1 python scripts/record_whip_rope_obs.py
+    python scripts/record_whip_rope_obs.py
 """
 
 import os
 import sys
 
+import jax
 import numpy as np
-
-if not os.environ.get("RECORD_ON_TPU"):
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-import jax  # noqa: E402
-
-if not os.environ.get("RECORD_ON_TPU"):
-    jax.config.update("jax_platforms", "cpu")
 
 _here = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _here)

@@ -239,8 +239,8 @@ def main():
         # `nstate.stiffness * g.stiffness` (cloth_simulator.py:126) raises.
         # A float stiffness restores the original (float-cotangent)
         # behavior and keeps mem_saving_level=2, whose per-robot-step
-        # recompute the 16 GB chip needs (level 0 tries to keep a 50 GB
-        # f32[3,40,50,4,4096,3] residual buffer).
+        # recompute keeps the residuals small (level 0 tries to keep a
+        # 50 GB f32[3,40,50,4,4096,3] residual buffer).
         import daxbench.core.envs.fold_cloth1_env as _m1
         import daxbench.core.envs.fold_cloth3_env as _m3
 

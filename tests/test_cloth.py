@@ -90,6 +90,43 @@ class TestClothSimulator:
         ref, _ = sim0.step_batch(state0, action)
         np.testing.assert_allclose(np.asarray(out.x), np.asarray(ref.x), atol=1e-6)
 
+    def _grip_loss(self, sim):
+        """Action gradient of a robot step whose gripper holds a corner."""
+        def loss(action, state):
+            prim0 = jnp.concatenate([state.x[:, 0, 0], jnp.full((state.x.shape[0], 1), 0.05)], -1)
+            s, _ = sim.step_batch(state._replace(primitive0=prim0), action)
+            return jnp.sum(s.x[..., 1]) + 0.1 * jnp.sum(s.v)
+        return jax.jit(jax.grad(loss))
+
+    @pytest.mark.parametrize("level", [0, 1, 2])
+    def test_mem_saving_levels_same_grad(self, level):
+        action = jnp.ones((1, 8)).at[:, 3].set(0.0) * 0.3
+        sim, state = self.make(batch=1, mem_saving_level=level)
+        sim0, state0 = self.make(batch=1, mem_saving_level=0)
+        g = self._grip_loss(sim)(action, state)
+        g0 = self._grip_loss(sim0)(action, state0)
+        assert np.abs(np.asarray(g0)).sum() > 0
+        np.testing.assert_allclose(np.asarray(g), np.asarray(g0), rtol=1e-5, atol=1e-7)
+
+    @pytest.mark.parametrize("batch", [1, 2, 5])
+    def test_batch_invariance(self, batch):
+        """Env i's step and action gradient do not depend on the batch size
+        it is computed in."""
+        actions = jnp.asarray(np.random.RandomState(0).uniform(-0.5, 0.5, (5, 8)),
+                              jnp.float32).at[:, 3].set(0.0)
+        sim5, state5 = self.make(batch=5)
+        sim, state = self.make(batch=batch)
+        ref, _ = sim5.step_batch(state5, actions)
+        out, _ = sim.step_batch(state, actions[:batch])
+        np.testing.assert_allclose(np.asarray(out.x), np.asarray(ref.x[:batch]),
+                                   rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(np.asarray(out.v), np.asarray(ref.v[:batch]),
+                                   rtol=1e-6, atol=1e-7)
+        g_ref = self._grip_loss(sim5)(actions, state5)
+        g = self._grip_loss(sim)(actions[:batch], state)
+        np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref[:batch]),
+                                   rtol=1e-5, atol=1e-7)
+
     def test_gradients_flow_and_finite(self):
         sim, state = self.make(batch=1)
         # grip a corner particle so the action actually touches the cloth

@@ -170,7 +170,7 @@ def test_pour_soup_particle_construction_matches_reference():
     veg = _veg_point_cloud()
     assert veg.shape == (4131, 3)
     # cheap res so reset is fast; particle construction is res-independent
-    conf = replace(PourSoupConf, res=(16, 8, 16), steps=2, backend="xla")
+    conf = replace(PourSoupConf, res=(16, 8, 16), steps=2)
     env = PourSoupEnv(batch_size=1, conf=conf)
     env.reset(jax.random.PRNGKey(0))
     mats = np.asarray(env.simulator.material)

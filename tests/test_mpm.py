@@ -266,3 +266,40 @@ class TestDenseTransfer:
         g_s = jax.grad(loss(sim_s))(a, state)
         np.testing.assert_allclose(np.asarray(g_d), np.asarray(g_s),
                                    rtol=1e-3, atol=1e-7)
+
+
+# true-resolution XLA-path smoke tests of the big-grid tasks
+
+
+@pytest.mark.slow
+def test_shape_elasto_true_res_xla_smoke():
+    """One forward step_diff + one backward at the reference resolution
+    (n_grid 96, res (48, 32, 48), ~33k particles) on the XLA path."""
+    from unidom_tpu.envs.mpm_tasks import ShapeElastoPlasticEnv
+
+    env = ShapeElastoPlasticEnv(batch_size=1)
+    obs, state = env.reset(jax.random.PRNGKey(0))
+    assert env.simulator.n_particles > 20000
+    a = jnp.asarray(np.array([[0.45, 0.0, 0.5, 0.55, 0.0, 0.5]], np.float32))
+    obs, reward, done, info = env.step_diff(a, state)
+    assert np.isfinite(np.asarray(info["state"].x)).all()
+
+    def loss(a):
+        _, r, _, _ = env.step_diff(a, state)
+        return -r.sum()
+
+    g = jax.grad(loss)(a)
+    assert np.isfinite(np.asarray(g)).all()
+
+
+@pytest.mark.slow
+def test_pour_soup_true_res_xla_smoke():
+    """One forward step_diff at pour_soup's reference resolution
+    (n_grid 128, res (128, 64, 128) ~= 1M cells) on the XLA path."""
+    from unidom_tpu.envs.mpm_tasks import PourSoupEnv
+
+    env = PourSoupEnv(batch_size=1)
+    obs, state = env.reset(jax.random.PRNGKey(0))
+    a = jnp.asarray(np.zeros((1, 6), np.float32))
+    obs, reward, done, info = env.step_diff(a, state)
+    assert np.isfinite(np.asarray(info["state"].x)).all()

@@ -11,8 +11,6 @@ import socket
 import subprocess
 import sys
 
-import pytest
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -24,13 +22,14 @@ def _free_port():
     return port
 
 
-@pytest.mark.timeout(600)
 def test_two_process_training_step():
     coord = f"localhost:{_free_port()}"
     env = dict(os.environ)
     env.update({
         "JAX_PLATFORMS": "cpu",
         "XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+        "PYTHONPATH": os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p),
     })
     procs = [
         subprocess.Popen(

@@ -1,17 +1,19 @@
-"""UniDOM-TPU: a TPU-native differentiable deformable-object manipulation framework.
+"""unidom_tpu: a differentiable deformable-object manipulation framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capability set of
-Kuroki1931/UniDOM (DaXBench differentiable MPM + mass-spring cloth, APG
-training, parameter-aware policies, trajectory optimization, PointNet++
-parameter estimation), built TPU-first:
+A ground-up JAX/XLA re-design of the capability set of Kuroki1931/UniDOM
+(DaXBench differentiable MPM + mass-spring cloth, APG training,
+parameter-aware policies, trajectory optimization, PointNet++ parameter
+estimation):
 
 - pure-functional simulators over typed state pytrees (zero recompiles for
   parameter randomization),
-- `vmap` env batching sized to fill a chip, `shard_map` over a device mesh for
-  data parallelism with `psum` gradient reduction over ICI,
-- Pallas kernels for the P2G/G2P scatter-gather hot path,
+- `vmap` env batching sized to fill a device, `shard_map` over a device mesh
+  for data parallelism with a `pmean` gradient all-reduce,
 - `jax.checkpoint`-based rematerialization replacing hand-rolled
   recompute-VJP machinery.
+
+The import name keeps the project's original name; the program runs on
+NVIDIA GPUs through XLA.
 """
 
 __version__ = "0.1.0"

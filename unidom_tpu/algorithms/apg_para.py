@@ -8,7 +8,7 @@ the policy observes the normalized stiffness (parameter-conditioned,
 apg_para.py); with a plain env it does not (apg_no_para.py) — one trainer
 covers both.
 
-TPU-native delta: the reference re-instantiates the env (and with it every
+Design delta: the reference re-instantiates the env (and with it every
 jit trace) for each stiffness draw (apg_para.py:314-420). Here stiffness is
 traced ``ClothState`` — randomization is a ``_replace`` on device arrays and
 training causes **zero** recompiles across the whole sweep.

@@ -16,7 +16,7 @@ its use in a2c_acktr.py (ACKTR = natural-gradient A2C/PPO). Semantics kept:
   (kfac.py:229-239), then SGD with momentum at lr * (1 - momentum)
   (kfac.py:139-143).
 
-TPU-native deltas: no module hooks — layer inputs come from an explicit
+Design deltas: no module hooks — layer inputs come from an explicit
 forward and pre-activation cotangents from ``jax.grad`` w.r.t. zero "taps"
 added to each pre-activation (exact autodiff, no hand-rolled backprop); the
 whole update is one jitted function over NamedTuple state.

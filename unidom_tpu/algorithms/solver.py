@@ -8,9 +8,9 @@ gradients; ``solve_action`` is the expert factory across randomized
 (E, nu, yield_stress); optim.py:5-80 implements Adam/Momentum with bounds)
 and ``solver_nn.py`` (optimize a policy net through the sim).
 
-TPU-native design: the action sequence is a (B, T, A) tensor optimized with
+Design: the action sequence is a (B, T, A) tensor optimized with
 optax through ``jax.grad`` of a ``lax.scan`` rollout — B independent
-shooting problems solved in parallel per chip (the reference solves one at a
+shooting problems solved in parallel per device (the reference solves one at a
 time on one GPU). Material parameters are traced state, so randomizing them
 per problem instance costs zero recompiles.
 """

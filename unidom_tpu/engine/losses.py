@@ -7,7 +7,7 @@ material (hard min-distance or soft weighted distance), summed with
 configurable weights; plus a mass-weighted IoU metric and the
 reward/incremental-IoU bookkeeping of ``compute_loss``.
 
-TPU-native deltas:
+Design deltas:
 - The target SDF is precomputed with a **jump-flooding transform** (log2(n)
   rounds of 26 masked shifts) instead of the reference's 2*n_grid sweeps of
   a 6^3 stencil (loss.py:81-106) — same nearest-point semantics, O(G log G).

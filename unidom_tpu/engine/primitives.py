@@ -5,7 +5,7 @@ collision with softness-weighted influence and Coulomb friction, and a
 position-control mode (semantics:
 DaXBench/daxbench/core/engine/primitives/primitives.py:9-239).
 
-TPU-first deltas:
+Design deltas:
 - The SDF is a static per-primitive callable chosen at env-construction time
   (from ``unidom_tpu.ops.sdf``), not a module-global ``set_sdf`` side channel
   (primitives.py:26-28) — traces stay pure.

@@ -87,7 +87,6 @@ class ClothEnv:
         def collision_func(x, v, idx_i, idx_j):
             return v
 
-        collision_func.is_identity = True  # lets the Pallas fast path engage
         return collision_func
 
     def seed(self, seed):

@@ -1,10 +1,10 @@
 // Host-side native point-cloud ops + dataset codec for the data pipeline.
 //
-// These are the TPU-stack counterparts of the reference's native op sets
+// These are this stack's counterparts of the reference's native op sets
 // (GenORM/policy/tf_ops/sampling/tf_sampling_g.cu farthest-point sampling,
 // grouping/tf_grouping_g.cu ball query, 3d_interpolation/interpolate.cpp
 // three-NN) re-implemented as a plain C ABI shared library: the on-device
-// path is XLA/Pallas (unidom_tpu/models/pointnet_ops.py); this library
+// path is plain JAX/XLA (unidom_tpu/models/pointnet_ops.py); this library
 // serves the host data loader (subsampling expert clouds, packing record
 // files) where Python-loop implementations are the bottleneck.
 //

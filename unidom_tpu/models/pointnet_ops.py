@@ -4,8 +4,8 @@ grouping, three-NN interpolation — pure JAX/XLA.
 These replace the reference's three vendored C++/CUDA TF custom-op sets
 (GenORM/policy/tf_ops/{sampling/tf_sampling_g.cu:7-199,
 grouping/tf_grouping_g.cu:3-105, 3d_interpolation/interpolate.cpp}; same
-copies under PlasticineLab/{real2sim,sim2sim}/tf_ops). On TPU the natural
-formulation is batched dense distance matrices on the MXU + masked top-k —
+copies under PlasticineLab/{real2sim,sim2sim}/tf_ops). The formulation
+here is batched dense distance matrices (one matmul) + masked top-k —
 no atomic scatter, no custom kernels, fully differentiable where the
 reference ops define gradients (gather/interpolate), and vmap/jit/pjit
 composable. A CPU C reference implementation lives in unidom_tpu/io/native
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 
 def _sq_dist(a, b):
-    """(..., N, 3) x (..., M, 3) -> (..., N, M) squared distances (MXU)."""
+    """(..., N, 3) x (..., M, 3) -> (..., N, M) squared distances (one matmul)."""
     a2 = jnp.sum(a * a, -1, keepdims=True)
     b2 = jnp.sum(b * b, -1, keepdims=True)
     ab = jnp.einsum("...nd,...md->...nm", a, b)

@@ -5,14 +5,12 @@ A batch of 3x3 matrices is a 3x3 nested tuple of identically-shaped arrays
 3-vectors is a 3-tuple. Every op below unrolls to fused element-wise
 multiply-adds over the flat batch axis.
 
-Why this exists: TPU vector registers are (8 sublanes x 128 lanes) tiles
-over the two minormost axes. The AoS ``(..., 3, 3)`` layout the reference
-uses (svd_safe_batch.py, mpm_simulator.py stress math) puts a 3-wide axis
-on the 128-wide lane dimension — ~42x padding — and lowers each 3x3 matmul
-to a tiny degenerate MXU op. In component form the minormost axis is the
-particle batch, lanes are full, and XLA fuses whole chains of these ops
-into single VPU loops. This is the MPM analog of the cloth kernel's SoA
-layout (ops/pallas/cloth_kernel.py docstring).
+Why this exists: the AoS ``(..., 3, 3)`` layout the reference uses
+(svd_safe_batch.py, mpm_simulator.py stress math) puts a 3-wide axis
+minormost and lowers each 3x3 matmul to a tiny degenerate dot. In component
+form the minormost axis is the particle batch, memory accesses are
+contiguous across particles, and XLA fuses whole chains of these ops into
+single element-wise loops.
 """
 
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 Numerics match the reference definitions exactly (these feed the reward, so
 they are part of the acceptance criteria) but the chamfer pairwise distance
-is computed via a Gram-matrix expansion that maps onto the MXU instead of
+is computed via a Gram-matrix expansion (one matmul) instead of
 materializing (B, Nx, Ny, 3) broadcast tensors
 (reference: DaXBench/daxbench/core/utils/util.py:128-159,
 daxbench/core/envs/others/metric.py:4-27).
@@ -18,7 +18,7 @@ def _pairwise_rms(x, y):
     coordinate axis (the reference's convention), i.e. euclidean / sqrt(3)."""
     x2 = jnp.sum(x * x, axis=-1)  # (B, Nx)
     y2 = jnp.sum(y * y, axis=-1)  # (Ny,)
-    xy = jnp.einsum("bid,jd->bij", x, y)  # MXU
+    xy = jnp.einsum("bid,jd->bij", x, y)
     d2 = x2[..., :, None] + y2[None, None, :] - 2.0 * xy
     return jnp.sqrt(jnp.clip(d2, 0.0, None) / x.shape[-1])
 

@@ -1,9 +1,8 @@
-"""Batched 3x3 SVD for TPU with a degenerate-safe custom VJP.
+"""Batched 3x3 SVD with a degenerate-safe custom VJP.
 
-TPU has no fast native SVD primitive, so the forward pass is a one-sided
-Jacobi eigendecomposition of ``A^T A`` — fused element-wise sweeps that
-vectorize on the VPU across the particle batch, with no per-matrix control
-flow. This replaces the LAPACK-style ``jnp.linalg.svd`` the reference calls
+The forward pass is a one-sided Jacobi eigendecomposition of ``A^T A`` —
+fused element-wise sweeps that vectorize across the particle batch, with no
+per-matrix control flow. This replaces the LAPACK-style ``jnp.linalg.svd`` the reference calls
 on GPU (reference: DaXBench/daxbench/core/engine/svd_safe_batch.py:19-51).
 
 The backward pass implements the standard complex-safe SVD adjoint with
@@ -14,7 +13,7 @@ re-derived).
 Both passes run in **component form** (ops/m3.py): a matrix batch is nine
 flat arrays, every 3x3 matmul is 27 fused multiply-adds, and each Jacobi
 rotation updates components with two scalars — so the whole SVD compiles to
-a handful of full-lane VPU loops instead of thousands of lane-padded
+a handful of element-wise loops instead of thousands of
 (..., 3, 3) micro-matmuls. ``svd3``/``svd3_jacobi`` keep the AoS
 ``(..., 3, 3)`` interface (converting at the boundary); ``svd3_soa`` is the
 native component-form entry point for SoA callers.
@@ -72,9 +71,8 @@ def _eigh3_soa(M):
     component form. Returns (w, V) with ``M ~= V diag(w) V^T``.
 
     The sweep loop is a ``fori_loop`` rather than a Python unroll: this
-    sits inside every physics substep (and inside the Pallas MPM kernel,
-    where a 6x-unrolled body overflows the TPU backend's register
-    allocator); it is never reverse-differentiated through because
+    sits inside every physics substep, and a rolled loop keeps the compiled
+    substep small; it is never reverse-differentiated through because
     ``svd3_soa``/``svd3`` carry a custom VJP."""
 
     def sweep(_, SV):

@@ -1,12 +1,13 @@
 """Device-mesh construction for env-axis data parallelism.
 
 The reference scales with ``jax.pmap(minimize, axis_name="i")`` over local
-GPUs and NCCL all-reduce (apg.py:269-271, 235). TPU-native equivalent: a 1-D
-``Mesh`` over the ``env`` axis; the training step runs under ``shard_map``
-with env-batch sharded along it, gradients ``pmean``-reduced over ICI, and
-parameters replicated. Multi-host pods extend the same mesh across processes
-via ``jax.distributed.initialize`` — the collectives then ride ICI within a
-slice and DCN across slices with no code change.
+GPUs and NCCL all-reduce (apg.py:269-271, 235). Here: a 1-D ``Mesh`` over the
+``env`` axis; the training step runs under ``shard_map`` with env-batch
+sharded along it, gradients ``pmean``-reduced (an NCCL all-reduce over
+NVLink between the GPUs of one host), and parameters replicated. Several
+hosts extend the same mesh across processes via
+``jax.distributed.initialize``, one process per host owning its local GPUs,
+with no code change.
 """
 
 import jax

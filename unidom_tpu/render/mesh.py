@@ -118,5 +118,5 @@ class WaterRenderer(ParticleRenderer):
 
 if HAVE_PYRENDER:  # pragma: no cover
     # GL-backed implementations would subclass here; the software fallback
-    # remains the default in headless TPU environments.
+    # remains the default on headless machines.
     pass

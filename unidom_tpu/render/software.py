@@ -2,8 +2,8 @@
 
 The reference's renderers (DaXBench pyrender EGL scenes,
 engine/pyrender/py_render.py:16-191, and the Taichi ray-marcher,
-plb/engine/renderer/renderer.py:22-530) need a GPU/GL stack. For headless
-TPU pods this module renders orthographic/simple-perspective point and mesh
+plb/engine/renderer/renderer.py:22-530) need a GL stack. For headless
+machines this module renders orthographic/simple-perspective point and mesh
 views in pure numpy — enough for training GIFs, goal inspection, and CI.
 pyrender, when installed, is used instead via unidom_tpu.render.mesh.
 """

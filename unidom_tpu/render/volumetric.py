@@ -1,6 +1,6 @@
 """Volumetric SDF ray-march renderer (JAX).
 
-TPU-native re-design of the reference's Taichi path tracer
+Re-design of the reference's Taichi path tracer
 (GenORM/policy/pbm/plb/engine/renderer/renderer.py:22-530):
 
 - ``build_sdf_from_particles`` (renderer.py:102-132): the reference
